@@ -14,7 +14,7 @@ graph) — and prints the RUNBOOK table:
   * per-stem SI-SDR of the served separation, and its improvement over
     using the raw mixture as the estimate.
 
-Run on CPU (default here) or TPU: ``python scripts/eval_independent.py``.
+Run on the CPU or the GPU: ``python scripts/eval_independent.py``.
 """
 
 from __future__ import annotations

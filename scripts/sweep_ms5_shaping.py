@@ -228,7 +228,7 @@ def minor_sparse(seconds: float = 20.0, sr: int = 22_050, bpm: float = 96.0) -> 
 
 
 def bench_mix(seconds: float = 30.0, sr: int = 44_100, bpm: float = 126.0, seed: int = 7) -> np.ndarray:
-    """bench.py's _make_track mid channel (club-style kick+bass+chords+hats)."""
+    """bench.py's make_track mid channel (club-style kick+bass+chords+hats)."""
 
     n = int(seconds * sr)
     t = np.arange(n, dtype=np.float64) / sr

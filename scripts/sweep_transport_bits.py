@@ -1,7 +1,7 @@
 """Transport bit-depth gate sweep: measure, don't guess.
 
-The library sweep is relay-link-bound at 1.0 B per stereo sample pair
-(mid-only blockwise int8). Every proposed byte reduction must clear the
+The library sweep ships 1.0 B per stereo sample pair (mid-only
+blockwise int8). Every proposed byte reduction must clear the
 reference's accuracy gates (BPM ±0.1, beat grid ≤5 ms, LUFS ±0.3, true
 peak ±0.2 dB, key exact — SURVEY.md §6) on the SAME fixtures the test
 suite enforces them on. This script quantises each gate fixture with

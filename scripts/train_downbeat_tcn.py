@@ -4,7 +4,7 @@ Replaces the GRU checkpoint in the serving path: the TCN has no serial
 scan, so the fused whole-track graph can run it per track in milliseconds
 (madmom-equivalent capability, reference analysis/beats.py:124-141).
 
-Runs on the CPU backend (training is small; keeps the TPU free). After
+Runs on the CPU backend (training is small; keeps the accelerator free). After
 training, a held-out evaluation decodes downbeats on unseen synthetic
 meters {3,4} at both frame rates, with and without the net's evidence,
 and prints the F1 comparison that gates bundling.

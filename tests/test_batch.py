@@ -215,7 +215,7 @@ def test_library_device_batch_matches_default(transport) -> None:
 
 
 def test_one_device_sweep_trims_trailing_zero_lanes() -> None:
-    """On a ONE-device mesh (the relay case) a partial device_batch
+    """On a ONE-device mesh a partial device_batch
     group's trailing all-zero lanes are trimmed before upload and grown
     on device (_grow_part): results must be identical to batch-1 and
     the counted upload bytes must be ~half of untrimmed (2 real lanes in
@@ -829,8 +829,8 @@ def test_unbucketed_blockwise_transport_handles_any_length(transport, seconds) -
 def test_ms_bucket_length_tier_grid() -> None:
     """The ms/ms6 pad target: geometric buckets for short signals, the
     tier grid above ~47.5 s — every duration inside a tier shares one
-    executable (the round-3 driver warmup was ~4 cold relay compiles;
-    the bench's 96/136/181 s tracks must all land in ONE tier)."""
+    executable (the bench's 96/136/181 s tracks must all land in ONE
+    tier)."""
 
     from track_analyser_tpu.parallel.batch import (
         _MS_CHUNK_SAMPLES,

@@ -1,5 +1,5 @@
 """Sanitizer analogues (SURVEY §5): NaN-guarded execution and buffer-
-donation safety — the TPU build's equivalent of the race/UB sanitizers a
+donation safety — this build's equivalent of the race/UB sanitizers a
 native framework would run."""
 
 from __future__ import annotations

@@ -107,22 +107,6 @@ def test_istft_roundtrip():
     np.testing.assert_allclose(rec, y, atol=1e-4)
 
 
-def test_matmul_dft_matches_rfft():
-    """The MXU DFT path (TPU-only in production; forced here) must agree
-    with rfft to f32-matmul rounding — it is the same transform, so a
-    drift here means a basis/precision bug, not a tolerance choice."""
-
-    y = RNG.normal(size=30_000).astype(np.float32)
-    for n_fft, hop in ((2048, 512), (1024, 256)):
-        frames = stft.frame_signal(jnp.asarray(y), n_fft, hop) * jnp.asarray(
-            stft.hann_window(n_fft)
-        )
-        mine = np.asarray(stft._dft_rfft_matmul(frames, n_fft))
-        ref = np.asarray(jnp.fft.rfft(frames, n=n_fft, axis=-1))
-        scale = np.max(np.abs(ref))
-        np.testing.assert_allclose(mine / scale, ref / scale, atol=5e-5)
-
-
 def test_istft_f_valid_matches_exact_shape() -> None:
     """istft(f_valid=...) on a bucket-padded spectrogram must reproduce
     the exact-shape inversion bitwise over the valid samples — the

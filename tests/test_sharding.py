@@ -1,4 +1,4 @@
-"""Multi-device tests on the virtual 8-device CPU mesh: the TPU-native
+"""Multi-device tests on the virtual 8-device CPU mesh: the JAX-native
 equivalent of a distributed test rig (SURVEY.md section 4)."""
 
 from __future__ import annotations

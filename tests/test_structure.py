@@ -1,7 +1,7 @@
 """Structure accuracy gate: when the drums mute at 12 s the segmenter must
 place a boundary within ±0.5 s — the reference project's published
 tolerance (/root/reference/tests/test_structure.py:41-43) — enforced
-against the fused novelty graph (cumsum self-similarity + Pallas HPSS)."""
+against the fused novelty graph (cumsum self-similarity + median-network HPSS)."""
 
 from __future__ import annotations
 

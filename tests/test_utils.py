@@ -69,3 +69,40 @@ def test_seeding_helpers():
     r1 = deterministic_rng(7).normal(size=4)
     r2 = deterministic_rng(7).normal(size=4)
     np.testing.assert_array_equal(r1, r2)
+
+
+def test_compile_cache_honours_environment_variable(monkeypatch, tmp_path) -> None:
+    """With JAX_COMPILATION_CACHE_DIR set, the program configures no cache
+    of its own: JAX's setting stands and no checkout directory appears."""
+
+    import jax
+
+    from track_analyser_tpu import utils
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "from_env"))
+    monkeypatch.setattr(utils, "CACHE_DIR", tmp_path / "checkout_cache")
+    before = jax.config.jax_compilation_cache_dir
+    utils.enable_persistent_compilation_cache()
+    assert jax.config.jax_compilation_cache_dir == before
+    assert not (tmp_path / "checkout_cache").exists()
+
+
+def test_compile_cache_defaults_to_fixed_path_inside_checkout(monkeypatch) -> None:
+    from pathlib import Path
+
+    import jax
+
+    from track_analyser_tpu import utils
+
+    root = Path(utils.__file__).resolve().parents[1]
+    assert utils.CACHE_DIR == root / ".jax_cache"
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        utils.enable_persistent_compilation_cache()
+        first = jax.config.jax_compilation_cache_dir
+        utils.enable_persistent_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == first == str(root / ".jax_cache")
+        assert Path(first).is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -1,9 +1,9 @@
-"""track_analyser_tpu — a TPU-native audio track analysis framework.
+"""track_analyser_tpu — an accelerator-native audio track analysis framework.
 
 Capability superset of the reference track-analyser: the same public API
 (``analyse_track``, ``TrackAnalysisResult``, per-module ``analyse_*``
 functions and result dataclasses, CLI, report artefacts) re-designed for
-JAX / XLA / pjit on TPU, plus batched multi-chip library analysis
+JAX / XLA / pjit on an accelerator, plus batched multi-device library analysis
 (parallel/batch.py).
 """
 

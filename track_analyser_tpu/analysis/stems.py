@@ -3,7 +3,7 @@
 The reference's stem path is an optional torch+demucs download
 (analysis/stems.py:26-61) that silently degrades to ``None``. This
 framework ships a dependency-free, fully deterministic DSP separator that
-always works on TPU: HPSS soft masks plus band-limited mid/side masking,
+always works on the device: HPSS soft masks plus band-limited mid/side masking,
 inverted back to audio with the jitted ISTFT. A trainable neural separator
 (models/separation.py resolving a pure-JAX band-split mask net checkpoint,
 models/separation_net.py) can override it when a checkpoint is available;

@@ -6,7 +6,7 @@ energy novelty, Gaussian-smoothed, peak-picked with an 8 s minimum spacing,
 refined against energy novelty, snapped to beats, and classified with the
 same percussive-ratio rules.
 
-TPU-first differences: the whole curve — STFT, HPSS median filtering, mel,
+Differences: the whole curve — STFT, HPSS median filtering, mel,
 MFCC, the self-similarity term (a Python per-frame loop in the reference,
 structure.py:203-210) — is one jitted XLA graph built from cumulative-sum
 moving averages and filterbank matmuls. Host code only picks peaks on the

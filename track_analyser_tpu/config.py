@@ -1,4 +1,4 @@
-"""Frozen configuration for the TPU-native track analysis framework.
+"""Frozen configuration for the track analysis framework.
 
 The reference scatters its tunables as keyword defaults across modules
 (reference: src/track_analyser/tempo.py:12-13, analysis/structure.py:39-40,

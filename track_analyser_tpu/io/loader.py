@@ -1,6 +1,6 @@
 """Host-side audio loading (decode + resample).
 
-Decode can never be TPU work; this layer mirrors the reference loader's
+Decode is host work; this layer mirrors the reference loader's
 contract (io.py:56-139): channel-major float32 samples, sample rate, and a
 metadata dict with channels / duration / file_type (/ subtype).
 """

@@ -1,4 +1,4 @@
-"""Trainable downbeat activation network (pure JAX, TPU-shaped).
+"""Trainable downbeat activation network (pure JAX, static shapes).
 
 The madmom path this replaces (reference analysis/beats.py:124-141) is an
 RNN producing per-frame beat/downbeat activations decoded by a DBN. Here:
@@ -6,7 +6,7 @@ RNN producing per-frame beat/downbeat activations decoded by a DBN. Here:
 * features: log-mel frames (n_mels,) per hop — computed by the shared ops
   tier;
 * model: input projection -> two GRU layers (lax.scan over frames, hidden
-  state in registers, weights in bf16 on the MXU) -> 3-way softmax per
+  state carried by the scan) -> 3-way softmax per
   frame (none / beat / downbeat);
 * training: class-weighted cross entropy, SGD/momentum, data-parallel over
   the ``data`` mesh axis with tensor-parallel hidden sharding over
@@ -58,7 +58,7 @@ def _gru_layer(x, wx, wh, b):
     """GRU over the time axis via lax.scan. x: (T, hidden)."""
 
     hidden = wh.shape[0]
-    # One big input matmul for all timesteps (MXU-friendly), scan only the
+    # One big input matmul for all timesteps, scan only the
     # recurrent part.
     xproj = jnp.dot(x, wx, preferred_element_type=jnp.float32) + b
 
@@ -94,9 +94,9 @@ def forward(params: Dict[str, jnp.ndarray], feats: jnp.ndarray) -> jnp.ndarray:
 # Time-parallel TCN — the serving architecture.
 #
 # The GRU above costs a ~15k-step serial lax.scan on a 3-minute track,
-# seconds of TPU latency. A dilated temporal-convolution stack has the
+# seconds of serial device latency. A dilated temporal-convolution stack has the
 # same class of receptive field (~6 s at hop 512) with every frame
-# computed in parallel on the MXU; its whole-track cost inside the fused
+# computed in parallel as matmuls; its whole-track cost inside the fused
 # graph is milliseconds (madmom-equivalent capability,
 # reference analysis/beats.py:124-141, without the serial bottleneck).
 # ---------------------------------------------------------------------------
@@ -183,7 +183,7 @@ def train_step(
 ) -> Tuple[Dict[str, jnp.ndarray], Dict[str, jnp.ndarray], jnp.ndarray]:
     """One SGD-with-momentum step. Data-parallelism comes from sharding
     the batch axis of ``feats_batch`` over the mesh; XLA inserts the
-    gradient all-reduce over ICI automatically."""
+    gradient all-reduce across devices automatically."""
 
     loss, grads = jax.value_and_grad(loss_fn)(params, feats_batch, labels_batch)
     new_m = jax.tree.map(lambda m, g: beta * m + g, momentum, grads)

@@ -7,7 +7,7 @@ dict of named stems. Without a checkpoint the DSP separator
 reference applies to demucs (analysis/stems.py:26-61 in the reference).
 
 The architecture (models/separation_net.py, pure-JAX parameter dicts) is
-TPU-shaped: STFT front-end, band-split linear encoders, mixing blocks
+built from static shapes: STFT front-end, band-split linear encoders, mixing blocks
 (depthwise time conv + band-mixing MLP), and per-stem complex mask
 decoders — all static shapes. Training utilities live in
 models/training.py.

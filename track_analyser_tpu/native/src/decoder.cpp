@@ -1,7 +1,7 @@
 // Native audio decode fast path for track_analyser_tpu.
 //
 // The host data pipeline (decode + frame assembly) is the one part of the
-// framework that can never run on the TPU; this library keeps it off the
+// framework that never runs on the device; this library keeps it off the
 // Python interpreter. Exposed via a minimal C ABI consumed with ctypes
 // (track_analyser_tpu/native/binding.py).
 //

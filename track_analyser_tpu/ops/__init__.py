@@ -1,5 +1,5 @@
 """Kernel/ops tier: jittable DSP primitives replacing the reference's
-librosa/scipy/pyloudnorm substrate with XLA-/Pallas-friendly ops."""
+librosa/scipy/pyloudnorm substrate with XLA-friendly ops."""
 
 from . import chroma, filters, loudness, mel, onset, peaks, resample, spectral, stft
 

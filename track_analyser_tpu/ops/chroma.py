@@ -3,7 +3,7 @@
 The reference's key/chord path runs librosa's recursive multirate CQT
 (harmony.py:107, 148) — a poor fit for XLA (data-dependent resampling
 cascade, many small FFTs). Here every chroma variant is a filterbank
-matmul over a static STFT, which is the natural MXU mapping:
+matmul over a static STFT:
 
 * ``chroma_stft_filterbank`` reproduces librosa.filters.chroma (Gaussian
   log-frequency windows folded to 12 pitch classes, tuning fixed to 0).
@@ -28,8 +28,12 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# Filterbank matmuls feed gated results: full float32, never TF32.
+_PRECISION = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "chroma_stft_filterbank",
@@ -175,7 +179,7 @@ def multibank_cq_filterbanks(
     whose octave falls in [oct_lo, oct_hi) project from an n_fft-point
     STFT of the ``decim``-fold decimated signal (decim=1 = full rate).
     Channels whose centre exceeds their bank's Nyquist fall through to
-    the LAST spec (assumed full-rate). This is the TPU-first equivalent
+    the LAST spec (assumed full-rate). This is the static-shape equivalent
     of librosa's recursive multirate CQT (reference harmony.py:107):
     window length per octave group is set by (n_fft, decim), and every
     bank is a plain filterbank matmul over a static STFT.
@@ -349,8 +353,10 @@ def cq_chroma_multires(
     mag_low = magnitude(y_low, n_fft_low, hop // decim, power=1.0)
     t = min(mag_high.shape[-1], mag_low.shape[-1])
     raw = jnp.dot(
-        jnp.asarray(fb_high), mag_high[:, :t], preferred_element_type=jnp.float32
-    ) + jnp.dot(jnp.asarray(fb_low), mag_low[:, :t], preferred_element_type=jnp.float32)
+        jnp.asarray(fb_high), mag_high[:, :t], preferred_element_type=jnp.float32, precision=_PRECISION
+    ) + jnp.dot(
+        jnp.asarray(fb_low), mag_low[:, :t], preferred_element_type=jnp.float32, precision=_PRECISION
+    )
     return normalize_inf(raw, axis=0)
 
 
@@ -413,12 +419,12 @@ def cq_chroma_tribank(
     mag_low = magnitude(y_low, low_n_fft, hop_low, power=1.0)
     mag_mid = magnitude(y_low, mid_n_fft, hop_low, power=1.0)
     raw_fam = jnp.dot(
-        jnp.asarray(fb_fam), family_mag, preferred_element_type=jnp.float32
+        jnp.asarray(fb_fam), family_mag, preferred_element_type=jnp.float32, precision=_PRECISION
     )[:, :: hop // family_hop]
     t = min(mag_low.shape[-1], mag_mid.shape[-1], raw_fam.shape[-1])
     raw = (
-        jnp.dot(jnp.asarray(fb_low), mag_low[:, :t], preferred_element_type=jnp.float32)
-        + jnp.dot(jnp.asarray(fb_mid), mag_mid[:, :t], preferred_element_type=jnp.float32)
+        jnp.dot(jnp.asarray(fb_low), mag_low[:, :t], preferred_element_type=jnp.float32, precision=_PRECISION)
+        + jnp.dot(jnp.asarray(fb_mid), mag_mid[:, :t], preferred_element_type=jnp.float32, precision=_PRECISION)
         + raw_fam[:, :t]
     )
     return normalize_inf(raw, axis=0)
@@ -428,7 +434,7 @@ def chroma_from_power(power_spec: jnp.ndarray, fb: np.ndarray) -> jnp.ndarray:
     """Project a power spectrogram through a chroma filterbank and
     inf-normalise each frame (librosa chroma convention)."""
 
-    raw = jnp.dot(jnp.asarray(fb), power_spec, preferred_element_type=jnp.float32)
+    raw = jnp.dot(jnp.asarray(fb), power_spec, preferred_element_type=jnp.float32, precision=_PRECISION)
     return normalize_inf(raw, axis=0)
 
 

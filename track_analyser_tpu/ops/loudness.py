@@ -1,11 +1,11 @@
 """EBU R128 / ITU-R BS.1770 loudness, gated, fully on device.
 
 The reference delegates to pyloudnorm (analysis/loudness.py:59-68), a
-sample-serial IIR implementation. Serial IIRs are hostile to TPUs, so the
-K-weighting cascade (high-shelf + RLB high-pass biquads, coefficients from
-the BS.1770 analog prototype pre-warped per sample rate) is applied as an
-FFT convolution with the cascade's truncated impulse response — numerically
-equivalent far below the +-0.3 LU test tolerance (tail < 1e-7 after 16k
+sample-serial IIR implementation. A serial IIR cannot use the device's
+parallelism, so the K-weighting cascade (high-shelf + RLB high-pass
+biquads, coefficients from the BS.1770 analog prototype pre-warped per
+sample rate) is applied as an FFT convolution with the cascade's
+truncated impulse response — numerically equivalent far below the +-0.3 LU test tolerance (tail < 1e-7 after 16k
 samples) and bandwidth-bound instead of latency-bound.
 
 Gating (400 ms blocks, 75% overlap, -70 LUFS absolute and -10 LU relative
@@ -83,67 +83,18 @@ def k_weighting_fir(fs: int, n_taps: int = 16_384) -> np.ndarray:
     return h.astype(np.float32)
 
 
-@lru_cache(maxsize=8)
-def _k_toeplitz(fs: int, taps: int, lanes: int) -> np.ndarray:
-    """Banded causal-FIR Toeplitz matrix (pad0 + lanes, lanes) computing
-    ``lanes`` adjacent K-weighted samples from one signal block."""
-
-    h = k_weighting_fir(fs, taps).astype(np.float64)
-    pad0 = -(-(taps - 1) // lanes) * lanes
-    length = pad0 + lanes
-    mat = np.zeros((length, lanes), dtype=np.float64)
-    for c in range(lanes):
-        # out[c] = sum_t h[t] * y[c - t]  ->  mat[u, c] = h[c + pad0 - u]
-        top = c + pad0
-        mat[top - taps + 1 : top + 1, c] = h[::-1]
-    return mat.astype(np.float32)
-
-
-def _k_weighted_matmul(y: jnp.ndarray, fs: int, *, taps: int = 2_048, lanes: int = 512) -> jnp.ndarray:
-    """K-weighting as ONE banded-Toeplitz MXU matmul (accelerator path).
-
-    The cascade's impulse response holds 1 - 2e-11 of its energy in the
-    first 2048 samples (vs the +-0.3 LU gate = 7% energy), so the
-    truncated FIR is exact for loudness purposes. Same reformulation as
-    ops/resample.decimate_fir: a (B, pad0 + lanes) @ (pad0 + lanes,
-    lanes) matmul replaces the overlap-save FFT conv (measured ~5.5 ms
-    -> ~1 ms on a 190 s track; any matvec/FFT shape is slower)."""
-
-    import jax
-
-    from .stft import frame_signal
-
-    n = y.shape[-1]
-    mat = jnp.asarray(_k_toeplitz(fs, taps, lanes))
-    length = mat.shape[0]
-    pad0 = length - lanes
-    n_blocks = -(-n // lanes)
-    tail = n_blocks * lanes - n
-    ypad = jnp.pad(y, [(0, 0)] * (y.ndim - 1) + [(pad0, tail)])
-    frames = frame_signal(ypad, length, lanes, center=False)
-    frames = frames[..., :n_blocks, :]
-    out = jnp.dot(frames, mat, precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(y.shape[:-1] + (n_blocks * lanes,))[..., :n]
-
-
 def k_weighted(y: jnp.ndarray, fs: int) -> jnp.ndarray:
     """Apply K-weighting via FFT convolution (same length as input).
 
-    Long signals on an accelerator run the banded-Toeplitz matmul
-    (_k_weighted_matmul); elsewhere overlap-save with pow2 blocks:
-    batched mid-size FFTs are ~2.4x faster on the TPU FFT unit than one
-    whole-signal transform (measured 13 -> 5.5 ms on a 190 s track), and
-    the result is the same linear convolution exactly.
+    Short signals take one whole-signal transform; long ones run
+    overlap-save with power-of-two blocks, a batch of mid-size FFTs that
+    computes the same linear convolution.
     """
-
-    from .stft import _on_accelerator
 
     h_np = k_weighting_fir(fs)
     taps = int(h_np.shape[0])
     n = y.shape[-1]
     block = 32_768
-    if n > 4 * block and _on_accelerator():
-        return _k_weighted_matmul(y, fs)
     if n <= 4 * block:  # short signals: one transform is cheaper
         h = jnp.asarray(h_np)
         n_fft = int(2 ** np.ceil(np.log2(n + taps - 1)))

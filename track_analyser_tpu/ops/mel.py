@@ -1,8 +1,8 @@
 """Mel / MFCC primitives.
 
 Filterbanks are precomputed on host (numpy, cached per (sr, n_fft)) and the
-device work is one filterbank matmul per spectrogram — the natural MXU
-mapping. The mel scale is Slaney-style (linear below 1 kHz, log above),
+device work is one filterbank matmul per spectrogram. The mel scale is
+Slaney-style (linear below 1 kHz, log above),
 matching the convention the reference inherits from librosa
 (structure.py:53-59, tempo.py:16-24 via onset_strength).
 """
@@ -11,8 +11,12 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# Filterbank matmuls feed gated results: full float32, never TF32.
+_PRECISION = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "hz_to_mel",
@@ -113,11 +117,11 @@ def amplitude_to_db(
 def melspectrogram_from_power(power_spec: jnp.ndarray, fb: np.ndarray) -> jnp.ndarray:
     """Project a power spectrogram (freq, time) through the mel filterbank."""
 
-    return jnp.dot(jnp.asarray(fb), power_spec, preferred_element_type=jnp.float32)
+    return jnp.dot(jnp.asarray(fb), power_spec, preferred_element_type=jnp.float32, precision=_PRECISION)
 
 
 def mfcc_from_log_mel(log_mel: jnp.ndarray, n_mfcc: int = 13) -> jnp.ndarray:
     """MFCCs via an orthonormal DCT-II matmul; input (n_mels, time)."""
 
     mat = jnp.asarray(dct_matrix(n_mfcc, log_mel.shape[0]))
-    return jnp.dot(mat, log_mel, preferred_element_type=jnp.float32)
+    return jnp.dot(mat, log_mel, preferred_element_type=jnp.float32, precision=_PRECISION)

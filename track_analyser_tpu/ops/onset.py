@@ -58,14 +58,14 @@ def tempogram_prepadded(envp: jnp.ndarray, win_length: int = 384) -> jnp.ndarray
     pad = win_length // 2
     n = envp.shape[-1] - 2 * pad
     # frames[t, k] = envp[t + k], assembled from win_length shifted slices
-    # (slice-stack, no gather — XLA gathers are slow on TPU).
+    # (slice-stack, no gather).
     frames = jnp.stack([envp[k : k + n] for k in range(win_length)], axis=-1)
     w = jnp.asarray(
         (0.5 - 0.5 * jnp.cos(2.0 * jnp.pi * jnp.arange(win_length) / win_length)),
         dtype=envp.dtype,
     )
     frames = frames * w
-    n_pad = 1 << (2 * win_length - 2).bit_length()  # pow2 >= 2w-1 (fast TPU radix)
+    n_pad = 1 << (2 * win_length - 2).bit_length()  # pow2 >= 2w-1
     spec = jnp.fft.rfft(frames, n=n_pad, axis=-1)
     ac = jnp.fft.irfft(spec * jnp.conj(spec), n=n_pad, axis=-1)[:, :win_length]
     scale = jnp.max(jnp.abs(ac), axis=-1, keepdims=True)
@@ -77,9 +77,8 @@ def autocorrelate(y: jnp.ndarray) -> jnp.ndarray:
     """Full (non-normalised) autocorrelation via FFT, same length as input.
 
     The pad target is the next power of two at or above 2n-1 (the linear
-    autocorrelation minimum) — the TPU FFT custom call runs mixed-radix
-    sizes via Bluestein at >10x the cost of a power of two (measured:
-    this one transform dominated the whole fused graph at size 2n=32770).
+    autocorrelation minimum): FFT libraries run sizes with large prime
+    factors far slower than a power of two.
     """
 
     n = y.shape[-1]

@@ -7,8 +7,8 @@ Two tiers:
 * ``true_peak_oversample_matrix`` / ``oversampled_peak`` — the device-side
   x8 polyphase upsampler used for BS.1770 true-peak measurement
   (reference: analysis/loudness.py:81-97 uses scipy.signal.resample_poly).
-  On TPU the polyphase filter is expressed as a single framed matmul so it
-  rides the MXU instead of a scalar FIR loop.
+  The polyphase filter is expressed as a single framed matmul instead of
+  a scalar FIR loop.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy import signal as _scipy_signal
@@ -75,16 +76,10 @@ def decimate_fir(y: jnp.ndarray, decim: int, *, sr: int, keep_hz: float) -> jnp.
     beyond both ends), so STFT frame grids of the decimated signal align
     with the full-rate grid.
 
-    TPU note: a single-channel strided convolution lowers catastrophically
-    (~95 ms for 8.4M samples via conv_general_dilated), and ANY
-    contraction shaped (n/decim, taps) @ (taps,) — dot, einsum, or
-    multiply+reduce — costs ~8-10 ms: a matvec never rides the MXU.
     Computing 128 adjacent outputs per block against a banded Toeplitz
-    matrix turns the whole decimation into ONE well-shaped MXU matmul,
-    (B, 3*128*decim) @ (3*128*decim, 128) — measured ~0.5 ms for the
-    same signal (~6 GFLOP, one pass over the block matrix)."""
-
-    import jax
+    matrix turns the whole decimation into ONE matmul,
+    (B, 3*128*decim) @ (3*128*decim, 128) (~6 GFLOP for 8.4M samples),
+    instead of a single-channel strided convolution or a matvec."""
 
     from .stft import frame_signal
 
@@ -151,7 +146,7 @@ def true_peak_oversample_matrix(up: int) -> np.ndarray:
 
     With frames X[n, i] = x[n + half_len//up - i], the oversampled signal is
     Y = X @ H, where Y[n, p] = y[up*n + p] of the zero-stuff-and-filter
-    upsampler. One MXU matmul replaces the scalar FIR.
+    upsampler. One matmul replaces the scalar FIR.
     """
 
     h = polyphase_filter(up, 1)
@@ -184,12 +179,12 @@ def oversampled_peak(
     n = x.shape[-1]
     xp = jnp.pad(x, (n_rows - 1 - shift, shift))
     # Reversed windows X[n, q] = xp[n + (n_rows-1) - q], assembled from
-    # n_rows contiguous shifted slices (no gather — TPU-friendly).
+    # n_rows contiguous shifted slices (no gather).
     frames = jnp.stack(
         [xp[(n_rows - 1 - q) : (n_rows - 1 - q) + n] for q in range(n_rows)],
         axis=-1,
     )
-    y = jnp.abs(jnp.dot(frames, hmat, preferred_element_type=jnp.float32))
+    y = jnp.abs(jnp.dot(frames, hmat, precision=jax.lax.Precision.HIGHEST))
     if mask is not None:
         y = jnp.where(mask[:, None], y, 0.0)
     return jnp.max(y)

@@ -8,8 +8,9 @@ no distributed code, so this layer is a new first-class component):
 * ``seq`` axis — STFT frame axis of one long track (sequence parallelism,
   parallel/sharded.py).
 
-Within a slice the collectives ride ICI; across slices
-``jax.distributed.initialize`` + DCN applies unchanged.
+Within one host the collectives run over the device interconnect
+(NVLink between GPUs); across hosts ``jax.distributed.initialize``
+applies unchanged.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ frame axis is sharded over the mesh's ``seq`` axis with ``shard_map``:
 
 * per-frame ops (window, FFT, filterbank matmuls, flux) are local;
 * the sample framing needs a one-hop halo of ``n_fft - hop`` samples from
-  the right neighbour — exchanged with ``ppermute`` over ICI;
+  the right neighbour — exchanged with ``ppermute``;
 * global reductions (min/max normalisation, gated loudness means) use
   ``psum``/``pmax``/``pmin``;
 * Gaussian smoothing exchanges a radius-sized halo in both directions.
@@ -23,7 +23,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import DEFAULT_CONFIG
@@ -88,14 +88,13 @@ def _local_envelope(
     y_full = jnp.concatenate([from_left, y_ext], axis=-1)
 
     # Local frames: +1 extra frame for the flux lag. Slice-stack framing
-    # (frame_signal's gather-free fast path) — XLA gathers are slow on
-    # TPU and this runs on every sequence-parallel dispatch.
+    # (frame_signal's gather-free fast path).
     win = jnp.asarray(hann_window(n_fft))
     frames = frame_signal(y_full, n_fft, hop, center=False)[: frames_per_shard + 1] * win
     spec = jnp.fft.rfft(frames, n=n_fft, axis=-1)
     power = jnp.abs(spec) ** 2
     fb = jnp.asarray(mel_filterbank(sr, n_fft, DEFAULT_CONFIG.n_mels))
-    mel_power = jnp.dot(power, fb.T, preferred_element_type=jnp.float32)  # (F+1, mels)
+    mel_power = jnp.dot(power, fb.T, precision=jax.lax.Precision.HIGHEST)  # (F+1, mels)
 
     # power_to_db with the GLOBAL max (top_db floor is a global property).
     amin = 1e-10
@@ -165,7 +164,7 @@ def sharded_onset_envelope(
 #
 # One long track, its sample/frame axis split over the ``seq`` mesh axis.
 # Each shard computes the substrate on an extended local block (own samples
-# plus a +-HALO_FRAMES halo exchanged over ICI with ppermute); global
+# plus a +-HALO_FRAMES halo exchanged with ppermute); global
 # properties (min/max normalisation scales, gated-loudness thresholds, key
 # chroma means, stereo statistics) reduce with psum/pmax/pmin. Framewise
 # outputs come back sharded; scalars come back replicated. Numerics match
@@ -453,7 +452,8 @@ def _local_track_analysis(
         cmean = csum / jnp.maximum(lt_den, 1.0)
         norm = jnp.linalg.norm(cmean)
         cnorm = cmean / jnp.where(norm > 0, norm, 1.0)
-        scores = scores + jnp.where(norm > 0, jnp.dot(jnp.asarray(rot, dtype=jnp.float32), cnorm), 0.0)
+        score = jnp.dot(jnp.asarray(rot, dtype=jnp.float32), cnorm, precision=jax.lax.Precision.HIGHEST)
+        scores = scores + jnp.where(norm > 0, score, 0.0)
     out["key_scores"] = scores
 
     # ---- spectral balance: folded into the shared 2048 family ---------
@@ -465,7 +465,7 @@ def _local_track_analysis(
     bal_w = jnp.asarray(balance_band_weights(sr, n_fft))
     bal_col = jnp.sum(jnp.where(own_valid_ext[None, :], mag, 0.0), axis=-1)
     bal_sums = jax.lax.psum(
-        jnp.dot(bal_w, bal_col, preferred_element_type=jnp.float32), axis_name
+        jnp.dot(bal_w, bal_col, precision=jax.lax.Precision.HIGHEST), axis_name
     )
     out["balance_total"] = jnp.sum(bal_sums)
     out["balance_low"] = bal_sums[0]
@@ -634,7 +634,7 @@ def sharded_track_outputs(
             "stereo_widths": P(),
             "f_valid": P(),
         },
-        check_rep=False,
+        check_vma=False,
     )
     with mesh:
         out = jax.device_get(jax.jit(fn)(jnp.asarray(buf), jnp.asarray(np.int32(n_valid))))

@@ -5,7 +5,7 @@ the same signature, the same ``TrackAnalysisResult`` fields, and the same
 progress-callback stage names (audio, beats, structure, loudness, harmonic,
 features, stereo, stems, render).
 
-TPU-first difference: the onset envelope / autocorrelation substrate is
+Difference: the onset envelope / autocorrelation substrate is
 computed ONCE and shared between BPM estimation and grid fitting (the
 reference re-runs the mel STFT three times — pipeline.py:61-62 plus
 tempo.py:140-141), and every module's heavy math is a jitted XLA graph.

@@ -2,7 +2,7 @@
 
 The reference's only observability hook is the progress callback
 (pipeline.py:38, 58-99). This module keeps that contract and adds the
-TPU-idiomatic layer (SURVEY.md section 5): wall-clock stage timers that
+device-side layer (SURVEY.md section 5): wall-clock stage timers that
 can wrap any progress callback, and a ``jax.profiler`` trace context for
 device-level inspection.
 """

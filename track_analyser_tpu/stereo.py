@@ -1,7 +1,7 @@
 """Stereo image analysis (mid/side, correlation, frequency-dependent width).
 
 Public surface parity with the reference (stereo.py:20-153) — same
-dataclasses, helper functions and band semantics — but TPU-first: ALL
+dataclasses, helper functions and band semantics — but device-first: ALL
 statistics (time-domain M/S RMS, centered correlation, per-band spectral
 width) come out of one jitted graph per call, not separate numpy passes.
 """

@@ -3,7 +3,7 @@
 Mirrors the reference's public surface (reference: src/track_analyser/
 utils.py:24-146) — ``AudioInput``, ``coerce_audio``, ``deterministic_rng``,
 ``seed_everything`` — while representing audio as arrays that drop straight
-onto a TPU (mono ``f32[n]`` plus optional channel-major stereo ``f32[2, n]``).
+onto the device (mono ``f32[n]`` plus optional channel-major stereo ``f32[2, n]``).
 """
 
 from __future__ import annotations
@@ -43,26 +43,32 @@ class AudioInput:
         return float(len(self.samples)) / float(self.sample_rate)
 
 
-def enable_persistent_compilation_cache(cache_dir: "str | None" = None) -> None:
-    """Enable JAX's on-disk compilation cache so repeated CLI invocations
-    skip XLA recompiles (cold compile on a TPU costs ~minutes).
+CACHE_DIR = Path(__file__).resolve().parents[1] / ".jax_cache"
+
+
+def enable_persistent_compilation_cache() -> None:
+    """Keep compiled executables on disk so later runs skip XLA compiles.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already caches there
+    and nothing is configured here. Otherwise the cache goes to the fixed
+    directory ``CACHE_DIR`` inside the checkout (git-ignored), so every
+    run from the same checkout finds the same entries.
 
     Also honours TRACK_ANALYSER_TPU_DEBUG_NANS=1 — the numerical-sanitizer
-    mode (jax_debug_nans) for debugging device graphs (SURVEY.md section 5:
-    the TPU-idiomatic replacement for the reference's absent sanitizers).
+    mode (jax_debug_nans) for debugging device graphs.
     """
 
     import os
 
     import jax
 
-    path = cache_dir or os.path.expanduser("~/.cache/track_analyser_tpu/xla")
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # cache is an optimisation, never a requirement
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        try:
+            CACHE_DIR.mkdir(parents=True, exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir", str(CACHE_DIR))
+            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+        except OSError:
+            pass  # cache is an optimisation, never a requirement
     if os.environ.get("TRACK_ANALYSER_TPU_DEBUG_NANS") == "1":
         jax.config.update("jax_debug_nans", True)
 
